@@ -1,11 +1,11 @@
-"""nextsim_tpu — a TPU-native sea-ice modeling framework.
+"""nextsim_tpu — a JAX sea-ice modeling framework.
 
 A brand-new JAX/XLA implementation of the capabilities of neXtSIM
 (nansencenter/nextsim): BBM / (m)EVP / free-drift sea-ice dynamics, zero-layer
 and Winton thermodynamics with a young-ice category, meltponds and ice-age
 tracers, Eulerian incremental-remapping advection, NetCDF forcing ingest,
 gridded "moorings" output, Lagrangian drifters, restart/resume, nesting,
-ensemble perturbations and a coupling exchange surface — rebuilt TPU-first on
+ensemble perturbations and a coupling exchange surface — rebuilt for XLA on
 a fixed quad structured polar-stereographic grid with 2-D domain decomposition
 over `jax.sharding.Mesh`.
 

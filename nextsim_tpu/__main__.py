@@ -79,10 +79,13 @@ def main(argv=None) -> int:
         print(f"nextsim_tpu: config error: {msg}", file=sys.stderr)
         return 2
 
-    # multi-host boot (no-op on a single host; reference: Environment ctor)
+    # multi-process boot (no-op without a coordinator; reference:
+    # Environment ctor)
     from nextsim_tpu.parallel.distributed import init_distributed
+    from nextsim_tpu.utils.compile_cache import enable_compile_cache
 
     init_distributed()
+    enable_compile_cache()
 
     from nextsim_tpu.model.simulator import Simulator
     from nextsim_tpu.parallel.multihost import is_writer

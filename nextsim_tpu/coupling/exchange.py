@@ -7,7 +7,7 @@ GridOutput instance (M_cpl_out), fields are time-averaged over
 `coupler.timestep` and put/get via the coupler library.
 
 Here the same exchange surface is file-based ("OASIS stub with prescribed
-ocean exchange fields", BASELINE.json config 4): sent fields are averaged,
+ocean exchange fields", BASELINE.md deployment 4): sent fields are averaged,
 remapped and written as `cpl_out_<YYYYMMDDTHHMMSSZ>.nc` on the exchange
 grid; received fields are read from `cpl_in_<...>.nc` when present and
 override the ocean/wave forcing for the next window. A real OASIS/socket

@@ -1,6 +1,6 @@
 """Ensemble forcing perturbations (EnKF module).
 
-TPU-native equivalent of the reference's EnKF perturbation generator
+JAX equivalent of the reference's EnKF perturbation generator
 (reference: modules/enkf/perturbation/src/mod_random_forcing.F90:1-813 and
 mod_pseudo.F90 pseudo2D — Evensen (1994) spectral pseudo-random fields),
 which is hooked into forcing loading under #ifdef ENSEMBLE (reference:
@@ -62,8 +62,7 @@ def spectral_noise(key, shape, rh_cells: float):
     amp = jnp.exp(log_amp - jnp.max(log_amp))
     kr, kp = jax.random.split(key)
     phase = jax.random.uniform(kp, amp.shape, minval=0.0, maxval=2.0 * jnp.pi)
-    # real-arithmetic inverse FFT: the TPU backend has no complex ops at
-    # all, and the matmul DFT runs on the MXU (ops/realfft.py)
+    # real-arithmetic inverse FFT as full-precision matmuls (ops/realfft.py)
     from nextsim_tpu.ops import realfft
 
     field = realfft.irfft2(amp * jnp.cos(phase), amp * jnp.sin(phase), (ny, nx))

@@ -6,14 +6,17 @@ launch N members of the same configuration with member-specific perturbed
 forcing (statevector.ensemble_member = 1..N; member 0 is the unperturbed
 control), each writing to its own output directory ``mem_<k>/``.
 
-On a pod slice the intended layout is one member per chip/process (BASELINE
-config 5) — each process runs this driver with its own member id. On a
-single host the members run sequentially (or use --members to run a
-subset).
+On several cards the layout is one member per card and process (BASELINE.md
+deployment 5): each process runs this driver with its own ``--member`` and its
+own ``--device``, so that it sees and reserves only that card (a JAX process
+reserves most of the memory of every card it can see). In one process the
+members run one after another.
 
 Usage:
     python -m nextsim_tpu.ensemble.run_ensemble --config-files X.cfg \
         --num-members 4 [--control] [opt=value ...]
+    python -m nextsim_tpu.ensemble.run_ensemble --config-files X.cfg \
+        --member 2 --device 1 [opt=value ...]      # one process per card
 """
 
 from __future__ import annotations
@@ -45,7 +48,16 @@ def main(argv=None) -> int:
                         help="also run the unperturbed member 0")
     parser.add_argument("--member", type=int, default=None,
                         help="run only this member (multi-process layout)")
+    parser.add_argument("--device", type=int, default=None,
+                        help="run on this card only (one process per card)")
     args, extra = parser.parse_known_args(argv)
+    if args.device is not None:
+        from nextsim_tpu.parallel.distributed import use_local_devices
+
+        use_local_devices([args.device])
+    from nextsim_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     overrides = {}
     files = list(args.config_files)

@@ -2,7 +2,7 @@
 
 The reference solves on an adaptive Lagrangian triangle mesh (reference:
 core/src/gmshmesh.cpp, contrib/bamg) with velocity on P1 nodes and tracers on
-P0 elements. The TPU-native equivalent is a fixed Arakawa **B-grid** on a
+P0 elements. The equivalent here is a fixed Arakawa **B-grid** on a
 polar-stereographic plane:
 
 * tracers / stress / damage at cell centers, shape ``(ny, nx)``
@@ -11,7 +11,7 @@ polar-stereographic plane:
 which preserves the reference's staggering semantics (strain rates from
 corner velocities; stress divergence scattered back to corners; lumped nodal
 mass from adjacent cells) while making every operator a shift-based stencil
-that XLA tiles onto the VPU and GSPMD shards with automatic halo exchange.
+that XLA fuses into elementwise kernels and GSPMD shards with automatic halo exchange.
 
 Masking convention:
 

@@ -35,7 +35,7 @@ def quad_drag_coef_air(cfg) -> float:
     return _quad_drag_air(cfg)
 
 
-def dyn_params(cfg, dx: float, n_cells=None) -> DynParams:
+def dyn_params(cfg, dx: float) -> DynParams:
     sc = scale_coef(dx)
     bbm = BBMParams(
         young=cfg["dynamics.young"],
@@ -78,26 +78,13 @@ def dyn_params(cfg, dx: float, n_cells=None) -> DynParams:
         mevp_beta=cfg["dynamics.mevp.beta"],
         nit_ow=cfg["numerics.nit_ow"],
         use_young_ice=cfg["thermo.newice_type"] == 4,
-        substep_unroll=_resolve_unroll(cfg["tpu.substep_unroll"], n_cells),
-        substep_kernel=cfg["tpu.substep_kernel"],
-        pallas_block_rows=cfg["tpu.pallas_block_rows"],
-        pallas_group_substeps=cfg["tpu.pallas_group_substeps"],
-        pallas_unroll=cfg["tpu.pallas_unroll"],
+        substep_unroll=_unroll(cfg["tpu.substep_unroll"]),
         bbm=bbm,
         evp=evp,
     )
 
 
-def _resolve_unroll(configured: int, n_cells) -> int:
-    """tpu.substep_unroll=0 means auto: 4 while the substep working set is
-    cache-resident, 1 in the HBM-streaming regime where unrolling inflates
-    the live set (v5e measurements in config/schema.py; the crossover sits
-    between 896^2=0.8M cells, still on the flat cost line, and
-    1216^2=1.5M). ``n_cells`` is the PER-DEVICE cell count — the regime is
-    set by each chip's block, not the global grid (simulator.py divides by
-    the mesh size)."""
-    if configured:
-        return configured
-    if n_cells is not None and n_cells > 1_000_000:
-        return 1
-    return 4
+def _unroll(u: int) -> int:
+    if u < 1:
+        raise ValueError(f"option tpu.substep_unroll: {u} < 1")
+    return u

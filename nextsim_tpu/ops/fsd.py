@@ -14,7 +14,7 @@ per cell, with
 * optional damage feedback (wave_coupling.fsd_damage_type).
 
 The per-bin loops are unrolled in Python (N is 10-30, static), so under jit
-everything fuses into elementwise VPU work over (nbins, ny, nx) arrays.
+everything fuses into elementwise work over (nbins, ny, nx) arrays.
 """
 
 from __future__ import annotations

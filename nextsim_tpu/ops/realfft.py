@@ -1,10 +1,9 @@
 """Real-arithmetic DFT helpers (matmul form).
 
-The TPU backend used here implements no complex-typed ops at all (not even
-`jnp.fft`): any complex intermediate fails with UNIMPLEMENTED. These helpers
-express the small DFTs the model needs as real matrix products — which on
-TPU is also the *faster* formulation (they run on the MXU, and every size
-involved is tiny: direction counts <= 32, spectral grids <= domain size).
+The small DFTs the model needs are expressed as real matrix products at
+full float32 precision, so no complex intermediate appears. Every size
+involved is tiny (direction counts <= 32, spectral grids <= domain size).
+`jnp.fft` could replace them (ROADMAP).
 
 Used by the ensemble spectral-noise generator (inverse rfft2 of a
 half-plane spectrum) and the WIM isotropic-scattering mode (forward/inverse
@@ -16,7 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# small DFT matmuls need full f32 precision (TPU default is bf16 inputs)
+# small DFT matmuls need full f32 precision (a float32 matmul may
+# otherwise run in reduced precision, e.g. TF32)
 _PREC = jax.lax.Precision.HIGHEST
 
 def _mm(a, b):

@@ -26,8 +26,8 @@ from nextsim_tpu.core import constants as phys
 
 def _fast_pow(x, e: float):
     """x**e with small-integer / half-integer exponents strength-reduced to
-    multiplies and sqrts (generic pow is a many-cycle transcendental on the
-    VPU and sits on the substep critical path)."""
+    multiplies and sqrts (generic pow is an exp-log pair and sits on the
+    substep critical path)."""
     if e == int(e) and 0 <= int(e) <= 8:
         n = int(e)
         out = None
@@ -91,7 +91,7 @@ def bbm_update(
 
     ``conc`` and ``thick`` are frozen during the substep loop, so callers can
     hoist ``expC`` and ``Pmax`` out of the loop (the exp/pow transcendentals
-    otherwise dominate the VPU critical path)."""
+    otherwise sit on the substep critical path)."""
     sxx, syy, sxy, damage = bbm_update_planes(
         sigma[0], sigma[1], sigma[2], damage, conc, thick, cohesion,
         time_relaxation_damage, eps11, eps22, eps12, delta_x, dt, p,
@@ -175,7 +175,7 @@ def bbm_update_planes(
 
     # Mohr-Coulomb + compressive failure (Plante & Tremblay form). Both
     # branches are ratios — select numerator/denominator per lane and divide
-    # once (divisions are multi-cycle on the VPU and this is the substep
+    # once (a division costs several multiplies and this is the substep
     # critical path).
     compressive = sigma_n < -p.compr_strength
     dcrit_num = jnp.where(compressive, -p.compr_strength, cohesion)

@@ -16,7 +16,7 @@ operators on triangles:
 On a quad cell with bilinear (Q1) velocity, the strain rate evaluated at the
 cell center uses the edge-mean differences; the corresponding shape-function
 gradients are +-1/(2 dx).  Everything is expressed as pad-and-slice shifts:
-XLA fuses these into single VPU passes and GSPMD inserts halo exchanges for
+XLA fuses these into single elementwise passes and GSPMD inserts halo exchanges for
 the shifted reads automatically when the arrays are sharded.
 
 Array layout: cells (ny, nx); nodes (ny+1, nx+1); index [j, i] = [y, x];

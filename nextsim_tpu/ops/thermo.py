@@ -17,7 +17,7 @@ model/finiteelement.cpp:5170-6148):
   (fe.cpp:5283-6148)
 
 Everything is branch-free jnp (`where` in place of if/else), so the whole
-step fuses into a handful of VPU kernels under jit. All formulas cite the
+step fuses into a handful of elementwise kernels under jit. All formulas cite the
 reference line they transcribe; deliberate oddities of the reference (e.g.
 the del_hs_mlt accumulation across bottom+surface melt in thermoWinton) are
 kept for parity.

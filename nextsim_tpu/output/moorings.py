@@ -18,8 +18,7 @@ format stores record variables interleaved per record after the fixed data,
 so appending record N writes one record slab at the end of the file and
 patches the numrecs header word: O(record) bytes, not O(file) (the analog of
 the reference's rank-0 appendNetCDF, model/gridoutput.cpp; scipy's own
-writer rewrites the whole file per append — 27 MB/record at 608^2 in
-RUN_r04, 33.7 s of a 43.7 s run spent in outputs)."""
+writer rewrites the whole file per append — 27 MB/record at 608^2)."""
 
 from __future__ import annotations
 

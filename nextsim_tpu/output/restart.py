@@ -69,7 +69,7 @@ def write_restart(sim, name: Optional[str] = None) -> str:
     fmt = cfg["restart.format"]
     arrays = {}
     # orbax: keep the state leaves on DEVICE — orbax writes each process's
-    # shards in parallel with NO global gather (the TPU-native alternative
+    # shards in parallel with NO global gather (the sharded alternative
     # to the reference's rank-0 writeRestart, fe.cpp:9503-9696; O(shard)
     # host memory instead of O(global))
     hstate = sim._crop(sim.state) if fmt == "orbax" else sim.host_state()
@@ -86,6 +86,14 @@ def write_restart(sim, name: Optional[str] = None) -> str:
             arrays[f"__drifter{i}_y"] = d.y
             arrays[f"__drifter{i}_id"] = d.ids
             arrays[f"__drifter{i}_alive"] = d.alive
+            arrays[f"__drifter{i}_last_output"] = np.asarray(d._last_output, np.float64)
+        # where the displacement the drifters ride was last sampled: a resume
+        # moves them by the displacement since then, not since step 0
+        arrays["__drifter_last_move"] = np.asarray(sim._drifter_last_move, np.float64)
+        if sim._drifter_ut_prev is not None:
+            arrays["__drifter_ut_prev_u"], arrays["__drifter_ut_prev_v"] = (
+                sim._drifter_ut_prev
+            )
     # WIM floe-number field (the WAVES-era M_nfloes prognostic participates
     # in the reference restart)
     if getattr(sim, "wim", None) is not None and getattr(sim, "_wim_nfloes", None) is not None:
@@ -200,6 +208,9 @@ def _apply_restart(sim, data, meta) -> None:
         from nextsim_tpu.parallel.sharding import shard_tree
 
         sim.state = shard_tree(sim.state, sim.device_mesh)
+    # the drifters' clocks are times; a restart that ignores its own time
+    # (restart.type=arbitrary) keeps the config's
+    keep_clock = cfg["restart.type"] != "arbitrary"
     drifters = getattr(sim, "drifters", None)
     if drifters:
         for i, d in enumerate(drifters):
@@ -210,6 +221,16 @@ def _apply_restart(sim, data, meta) -> None:
                 d.y = data[f"__drifter{i}_y"]
                 d.ids = data[f"__drifter{i}_id"]
                 d.alive = data[f"__drifter{i}_alive"]
+                if keep_clock and f"__drifter{i}_last_output" in data:
+                    d._last_output = float(data[f"__drifter{i}_last_output"])
+        if "__drifter_last_move" in data:
+            if keep_clock:
+                sim._drifter_last_move = float(data["__drifter_last_move"])
+            sim._drifter_ut_prev = (
+                (np.asarray(data["__drifter_ut_prev_u"]),
+                 np.asarray(data["__drifter_ut_prev_v"]))
+                if "__drifter_ut_prev_u" in data else None
+            )
     if getattr(sim, "wim", None) is not None and "__wim_nfloes" in data:
         sim._wim_nfloes = jnp.asarray(data["__wim_nfloes"], sim.dtype)
         if "__wim_sdf" in data and data["__wim_sdf"].shape == sim.wim.sdf.shape:

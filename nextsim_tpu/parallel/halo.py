@@ -5,12 +5,7 @@ the shifted stencil reads automatically — that is the default production
 path. This module provides the *explicit* primitives for hand-scheduled
 shard_map kernels; the full hand-scheduled momentum substep loop built on
 the same ppermute transport lives in parallel/seam.py and is selectable via
-tpu.partition_mode=shard_map. (A Pallas `make_async_remote_copy` RDMA
-transport was considered and deliberately NOT built: single-chip measurement
-showed XLA's codegen beats hand-written Mosaic kernels on this VPU-bound
-loop, and ICI scheduling cannot be profiled without multi-chip hardware —
-revisit only if real-pod profiling shows the ppermute transport on the
-critical path.)
+tpu.partition_mode=shard_map; XLA hands the ppermutes to NCCL.
 
 It is the structured-grid equivalent of the reference's updateGhosts
 point-to-point exchange that runs every dynamics substep (reference:

@@ -1,10 +1,9 @@
 """Weak/strong scaling harness.
 
-Measures full-model-step throughput across device-mesh sizes — the
-north-star ">80% weak scaling on a v5p-16" measurement (BASELINE.md). On a
-single-chip or CPU-mesh host it still runs (validating the sharded step and
-producing correctness-grade numbers); real efficiency numbers come from the
-same entry point on a pod slice.
+Measures full-model-step throughput across device-mesh sizes (weak
+scaling on up to four GPUs). On a CPU-mesh host it still runs (validating
+the sharded step and producing correctness-grade numbers); efficiency
+numbers come from the same entry point on the GPUs.
 
 Usage:  python -m nextsim_tpu.parallel.scaling [cells_per_device_side]
 """
@@ -99,11 +98,10 @@ def measure(cells_per_device_side: int = 304, steps: int = 5, substeps: int = 12
 def write_artifact(path: str, cells_per_device_side: int = 64, steps: int = 3,
                    substeps: int = 120) -> dict:
     """Race every schedule across mesh sizes on whatever devices exist and
-    write a binding JSON artifact (SCALING_r{N}.json): per-mesh-size rates
-    for gspmd and the hand-scheduled shard_map at halo depths 1 and 4
-    (VERDICT r3 item 7; north star: >80% weak scaling, SURVEY §6). On a
-    CPU host mesh the numbers race the *schedules*, not ICI — the same
-    entry point produces pod numbers when a pod slice exists."""
+    write a JSON record: per-mesh-size rates for gspmd and the
+    hand-scheduled shard_map at halo depths 1 and 4. On a CPU host mesh
+    the numbers race the *schedules*, not the interconnect — the same entry
+    point measures the GPUs when they are there."""
     legs = [("gspmd", 1)]
     if len(jax.devices()) > 1:
         legs += [("shard_map", 1), ("shard_map", 4)]

@@ -32,8 +32,8 @@ correct-data frontier erodes inward exactly one node+cell layer per substep
 (strain consumes a node layer, the stress-divergence/solve consumes a cell
 layer), so after H substeps the owned region is still exact and the next
 exchange resets the frontier. Redundant compute grows as ~2H/B per axis;
-messages shrink by H. The classic latency trade for when ICI/DCN round-trips
-dominate the per-substep critical path (the reference has no equivalent —
+messages shrink by H. The classic latency trade for when interconnect
+round-trips dominate the per-substep critical path (the reference has no equivalent —
 it pays one MPI exchange every substep, fe.cpp:10534).
 
 Ring values beyond the global domain are zero-filled in the STATIC fields at

@@ -3,7 +3,7 @@
 The reference writes every snapshot/restart synchronously on rank 0 — the
 whole MPI job stalls while Exporter streams records to disk (reference:
 exportResults/writeRestart, model/finiteelement.cpp:14111-14325, 9503-9696).
-On TPU the natural split is different: the device→host transfer is cheap
+Here the split is different: the device→host transfer is cheap
 (DMA, done on the caller thread so array contents are frozen at submit
 time), while serialization/compression/disk IO ride a single ordered
 worker thread — the step loop never waits on the filesystem.

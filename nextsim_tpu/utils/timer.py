@@ -5,7 +5,7 @@ model/timer.hpp:21-65, model/timer.cpp): named tick/tock pairs form a tree by
 call lineage; ``print_all`` renders the tree with per-node totals, percent of
 parent, and an "Unaccounted for" row where children don't cover the parent.
 
-On TPU, timings around async dispatch are meaningless unless the device work
+On an accelerator, timings around async dispatch are meaningless unless the device work
 is complete, so ``tock`` can optionally block on a JAX value
 (``tock(name, block_on=x)``), and ``jax.profiler`` trace hooks can be enabled
 for kernel-level inspection.

@@ -1,6 +1,6 @@
 """Reference field-diff harness: triangle-mesh snapshots -> structured grid.
 
-The north-star validation (BASELINE.json) is "prognostic fields allclose to
+The north-star validation (BASELINE.md) is "prognostic fields allclose to
 the reference after N steps on the toy config" (reference:
 config-files/nextsim.toy.cfg:1-62, run via model/run.sh:55). The reference
 executable cannot be built in this image (Boost.MPI / NetCDF-C++ / Gmsh are

@@ -1,6 +1,6 @@
 """Waves-in-ice module (WIM) package.
 
-TPU-native spectral wave attenuation + floe breakage on the model grid
+Spectral wave attenuation + floe breakage on the model grid
 (reference: modules/wim/include/wimdiscr.hpp:55 ``WimDiscr<T>`` and
 modules/wim/src/wimdiscr.cpp). ``Wim`` is the host-side driver (standalone
 or coupled through the Simulator); ``WimParams`` the option set

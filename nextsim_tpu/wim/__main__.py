@@ -1,6 +1,6 @@
 """Standalone WIM run: ``python -m nextsim_tpu.wim``.
 
-The TPU-era analog of the reference's uncoupled WIM executable
+The analog of the reference's uncoupled WIM executable
 (modules/wim/src/main.cpp: construct ``WimDiscr``, ``run()`` the ideal MIZ
 case — incident waves on the left, uniform ice on the right, spectrum
 attenuates into the pack and breaks floes). Writes the final diagnostic

@@ -1,6 +1,6 @@
 """Wave–ice scattering/attenuation parameters (RTparam), pure JAX.
 
-TPU-native reimplementation of the reference WIM's RTparam stack
+JAX reimplementation of the reference WIM's RTparam stack
 (reference: modules/wim/src/RTparam_outer.c, RTparam_fast.c,
 RTparam_hardcoded.c) — the per-floe scattering model of Kohout & Meylan
 (2008) as used by Williams et al. (2013a,b):
@@ -16,7 +16,7 @@ RTparam_hardcoded.c) — the per-floe scattering model of Kohout & Meylan
   extracted verbatim from the reference by tools/extract_rtparam_tables.py
   into rtparam_tables.npz; here they are evaluated as one batched
   Chebyshev tensor contraction with a per-cell one-hot regime select —
-  branch-free, MXU/VPU friendly.
+  branch-free.
 
 Outputs match RTparam_outer's `outputs[8]`:
   damping, kice, kwtr, int_adm, atten_nond (ac), modT, argR, argT.
@@ -39,6 +39,7 @@ _Y0_LL, _DY_LL, _N_LL, _H1_LL = 40.0, 120.0, 3, 0.4
 _HND_LIMS = (1.0e-2, 0.2, 0.4)
 _LOG_A = (1, 1, 1, 0, 1)  # log-interp in alp_nd per OPT
 _INTERP_MODE = (1, 1, 3, 2, 1)  # per OPT (RTparam_fast.c:145)
+_PREC = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=1)
@@ -103,6 +104,19 @@ def _cheb_basis(t, order: int = 10):
     return jnp.stack(ts, axis=-1)
 
 
+def _cheb_interp(t_a, t_h, tidx, tables):
+    """z[..., q] = sum_mn T_m(t_a) tables[tidx, m, n, q] T_n(t_h): the 2-D
+    Chebyshev sums of every table, then a one-hot pick of each cell's
+    table. Both products run at full precision: a float32 einsum may
+    otherwise run in TF32."""
+    tx = _cheb_basis(t_a)  # (..., 11) in alp
+    ty = _cheb_basis(t_h)  # (..., 11) in h
+    z_all = jnp.einsum("...m,tmnq,...n->...tq", tx, tables, ty,
+                       precision=_PREC)
+    onehot = jax.nn.one_hot(tidx, tables.shape[0], dtype=t_a.dtype)
+    return jnp.einsum("...tq,...t->...q", z_all, onehot, precision=_PREC)
+
+
 def _rtparam_fast(alp_nd, hnd, int_adm):
     """Interpolated attenuation coefficient + |T|, arg R, arg T
     (reference: RTparam_fast.c:16-128 regime selection, 130-445 dispatch,
@@ -143,12 +157,7 @@ def _rtparam_fast(alp_nd, hnd, int_adm):
 
     # table index = LOW*5 + OPT (tables zero-padded to (10,11,11,4))
     tidx = jnp.where(low, 5, 0) + opt
-    tx = _cheb_basis(t_a)  # (..., 11) in alp
-    ty = _cheb_basis(t_h)  # (..., 11) in h
-    # z[..., table, col] = tx · A · ty
-    z_all = jnp.einsum("...m,tmnq,...n->...tq", tx, tables, ty)
-    onehot = jax.nn.one_hot(tidx, 10, dtype=alp_nd.dtype)
-    z = jnp.einsum("...tq,...t->...q", z_all, onehot)
+    z = _cheb_interp(t_a, t_h, tidx, tables)
 
     im = jnp.asarray(_INTERP_MODE)[opt]  # 1, 2 or 3
     # modes 1/2: z = (log-)ac, argR, argT

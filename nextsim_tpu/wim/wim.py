@@ -1,6 +1,6 @@
 """Waves-in-ice module (WIM): spectral wave attenuation + floe breakage.
 
-TPU-native reimplementation of the reference WIM discretisation
+JAX reimplementation of the reference WIM discretisation
 (reference: modules/wim/src/wimdiscr.cpp, iceinfo.cpp, gridinfo.cpp) on the
 model's structured grid. The reference runs the WIM on its own regular grid
 (or on the neXtSIM mesh with ``nextwim.coupling-option=run_on_mesh``); here
@@ -446,8 +446,8 @@ def attenuate_spectrum(s_fq, ag, atten_dim, damp_dim, imask, dfloe, cos_d,
         q_scat = jnp.where(scattering, atten_dim, 0.0)
         q_abs = jnp.where(scattering, damp_dim, atten_dim + damp_dim)
         q_tot = q_scat + q_abs
-        # direction-axis DFT in real arithmetic (matmul on the MXU; the TPU
-        # backend implements no complex ops — ops/realfft.py)
+        # direction-axis DFT in real arithmetic (full-precision matmuls,
+        # ops/realfft.py)
         from nextsim_tpu.ops import realfft
 
         fft_re, fft_im = realfft.dft_leading(s_fq)
@@ -477,9 +477,12 @@ def attenuate_spectrum(s_fq, ag, atten_dim, damp_dim, imask, dfloe, cos_d,
         )
         s_fq = jnp.where(in_ice, s_fq * jnp.exp(-alp * ag[None] * dt_wim), s_fq)
 
-    sfreq = jnp.einsum("d,dyx->yx", wt_dir, s_fq)
-    sdx_om = jnp.einsum("d,dyx->yx", wt_dir * cos_d, s_fq)
-    sdy_om = jnp.einsum("d,dyx->yx", wt_dir * sin_d, s_fq)
+    # full-precision direction sums: a float32 einsum may otherwise run in
+    # TF32 on the GPU
+    hi = jax.lax.Precision.HIGHEST
+    sfreq = jnp.einsum("d,dyx->yx", wt_dir, s_fq, precision=hi)
+    sdx_om = jnp.einsum("d,dyx->yx", wt_dir * cos_d, s_fq, precision=hi)
+    sdy_om = jnp.einsum("d,dyx->yx", wt_dir * sin_d, s_fq, precision=hi)
     if p.atten and p.scatmod == "isotropic":
         sdx_om = jnp.where(imask > 0.5, sdx_om, 0.0)
         sdy_om = jnp.where(imask > 0.5, sdy_om, 0.0)

@@ -124,3 +124,42 @@ def test_simulator_on_etopo_coastline(tmp_path, monkeypatch):
     assert np.isfinite(np.asarray(s.vt_u)).all()
     # land cells hold no ice
     assert np.asarray(s.conc)[mask < 0.5].max() == 0.0
+
+
+def _synthetic_etopo():
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    import make_synthetic_etopo
+
+    return make_synthetic_etopo
+
+
+def test_synthetic_etopo_land_mask_matches_matplotlib():
+    """The numpy even-odd ray test rasterises every landmass exactly as
+    matplotlib's Path.contains_points did, on the generator's own grid
+    (whose lines pass through many polygon vertices)."""
+    mpath = pytest.importorskip("matplotlib.path")
+    mse = _synthetic_etopo()
+    lats = np.arange(50.0, 90.0 + 1e-9, 0.25)
+    lons = np.arange(-180.0, 180.0, 0.5)
+    lat2, lon2 = np.meshgrid(lats, lons, indexing="ij")
+    pts = np.column_stack([lon2.ravel(), lat2.ravel()])
+    want = np.zeros(lon2.size, bool)
+    for poly in mse.LANDMASSES:
+        want |= mpath.Path(np.asarray(poly)).contains_points(pts)
+    got = mse.land_mask(lon2, lat2)
+    assert got.sum() > 10000
+    np.testing.assert_array_equal(got, want.reshape(lon2.shape))
+
+
+def test_points_in_polygon_even_odd():
+    """Concave polygon: the notch is outside, both lobes inside."""
+    mse = _synthetic_etopo()
+    u_shape = [(0, 0), (3, 0), (3, 3), (2, 3), (2, 1), (1, 1), (1, 3), (0, 3)]
+    x = np.array([0.5, 2.5, 1.5, 1.5, 4.0, -0.5])
+    y = np.array([2.0, 2.0, 2.0, 0.5, 1.0, 1.0])
+    np.testing.assert_array_equal(
+        mse.points_in_polygon(x, y, u_shape),
+        [True, True, False, True, False, False],
+    )

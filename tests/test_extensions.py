@@ -429,8 +429,7 @@ def test_coupled_simulator_runs(tmp_path):
 
 
 def test_realfft_matches_numpy():
-    """Real-arithmetic DFT helpers (the TPU backend has no complex ops)
-    match the numpy complex reference."""
+    """Real-arithmetic DFT helpers match the numpy complex reference."""
     import jax.numpy as jnp
 
     from nextsim_tpu.ops import realfft
@@ -585,7 +584,7 @@ def test_simulator_nests_from_netcdf(tmp_path):
 def test_batched_ensemble_vmapped_members(tmp_path):
     """All ensemble members advance in ONE vmapped device program: member 0
     reproduces the unbatched control run, perturbed members develop spread
-    (TPU-native replacement of the reference's one-process-per-member
+    (the batched replacement of the reference's one-process-per-member
     ensemble layout, scripts/ensemble/run_ensemble.sh)."""
     from nextsim_tpu.config import Config
     from nextsim_tpu.ensemble.batched import BatchedEnsemble
@@ -826,7 +825,7 @@ def test_batched_ensemble_outputs(tmp_path):
 @pytest.mark.slow
 def test_member_sharded_ensemble_matches_batched(tmp_path):
     """BatchedEnsemble with a 1-D 'member' device mesh: members distribute
-    across devices as pure data parallelism (pod analog of the reference's
+    across devices as pure data parallelism (the analog of the reference's
     one-MPI-job-per-member ensemble) and reproduce the single-device
     batched ensemble member for member."""
     import jax
@@ -875,7 +874,7 @@ def test_member_sharded_ensemble_matches_batched(tmp_path):
 
 @pytest.mark.slow
 def test_member_and_domain_sharded_ensemble(tmp_path):
-    """The full EnKF pod layout: a 3-D ('member','y','x') mesh shards
+    """The full EnKF layout: a 3-D ('member','y','x') mesh shards
     members AND the domain at once (BASELINE config 5's members-per-slice
     combined with the spatial decomposition); member-for-member equal to
     the single-device batched ensemble."""

@@ -117,16 +117,16 @@ def test_no_ice_no_motion_from_stress():
 
 
 def test_substep_unroll_auto_resolution():
-    """tpu.substep_unroll=0 (the default) auto-selects 4 in the
-    cache-resident regime and 1 past ~1M cells where the substep loop is
-    HBM-streaming-bound (v5e: 421 vs 606 us/substep at 1216^2); explicit
-    values are honoured as given."""
+    """tpu.substep_unroll defaults to 4, the fastest of 1/2/4 at every grid
+    size measured on the H100 (464^2, 608^2, 1216^2; PERF.md); explicit
+    values are honoured as given and values below 1 are refused."""
     from nextsim_tpu.config import Config
     from nextsim_tpu.model import params
 
     cfg = Config()
-    assert params.dyn_params(cfg, 10e3, n_cells=608 * 608).substep_unroll == 4
-    assert params.dyn_params(cfg, 5e3, n_cells=1216 * 1216).substep_unroll == 1
-    assert params.dyn_params(cfg, 10e3).substep_unroll == 4  # unknown size
+    assert params.dyn_params(cfg, 10e3).substep_unroll == 4
+    assert params.dyn_params(cfg, 5e3).substep_unroll == 4
     cfg2 = Config(overrides={"tpu.substep_unroll": 8})
-    assert params.dyn_params(cfg2, 5e3, n_cells=1216 * 1216).substep_unroll == 8
+    assert params.dyn_params(cfg2, 5e3).substep_unroll == 8
+    with pytest.raises(ValueError, match="substep_unroll"):
+        params.dyn_params(Config(overrides={"tpu.substep_unroll": 0}), 10e3)

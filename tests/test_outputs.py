@@ -924,3 +924,38 @@ def test_read_restart_reanchors_cadence_state(tmp_path):
     sim.pcpt = 10
     del sim._wim_last_pcpt
     assert sim._wim_due() is True
+
+
+def test_resumed_drifters_match_continuous_run(tmp_path):
+    """Drifters ride the displacement accumulated since their last move. A
+    restart written between two moves carries where that displacement was
+    last sampled, so the resumed buoys end bitwise where the continuous
+    run's do (before, a resume moved them again by the whole displacement
+    since step 0)."""
+    step_days = 200.0 / 86400.0
+    over = {
+        "moorings.use_moorings": False,
+        "drifters.use_equally_spaced_drifters": True,
+        "drifters.spacing": 40.0,
+        "drifters.equally_spaced_drifters_output_time_step": 3 * step_days,
+        "restart.type": "continue",
+    }
+    cont = Simulator(toy_cfg(tmp_path / "c", **over))
+    for _ in range(9):
+        cont.step()
+    first = Simulator(toy_cfg(tmp_path / "r", **over))
+    for _ in range(5):  # moves at step 3; restart between moves
+        first.step()
+    restart_mod.write_restart(first, name="mid")
+    resumed = Simulator(toy_cfg(tmp_path / "r", **over))
+    restart_mod.read_restart(resumed, basename="mid")
+    assert resumed.pcpt == 5
+    for _ in range(4):
+        resumed.step()
+    (dc,), (dr,) = cont.drifters, resumed.drifters
+    assert len(dc.records) >= 3  # moved and recorded at steps 3, 6, 9
+    assert np.abs(dc.x - first.drifters[0].x).max() > 0.0  # they did move
+    np.testing.assert_array_equal(dr.x, dc.x)
+    np.testing.assert_array_equal(dr.y, dc.y)
+    np.testing.assert_array_equal(np.asarray(resumed.state.vt_u),
+                                  np.asarray(cont.state.vt_u))

@@ -472,3 +472,36 @@ def test_final_partial_check_window_flushes(tmp_path):
     assert sim._pending_viol is not None
     with pytest.raises(RuntimeError):
         sim.finalise()
+
+
+def test_run_records_steady_loop_event(tmp_path):
+    """Simulator.run reports its stepping loop after the first device call
+    (the one that compiles) as a jax.monitoring duration event with the
+    number of steps it covers."""
+    import jax
+
+    from nextsim_tpu.model.simulator import STEADY_LOOP_EVENT
+
+    seen = []
+
+    def listener(event, duration, **kwargs):
+        if event == STEADY_LOOP_EVENT:
+            seen.append((duration, kwargs))
+
+    jax.monitoring.register_event_duration_secs_listener(listener)
+    try:
+        cfg = toy_config(**{
+            "grid.nx": 32, "grid.ny": 32,
+            "simul.duration": 7 * 300.0 / 86400.0,
+            "tpu.steps_per_call": 2,
+            "output.exporter_path": str(tmp_path),
+            "output.output_per_day": 0,
+        })
+        Simulator(cfg).run()
+    finally:
+        jax.monitoring.unregister_event_duration_listener(listener)
+    # 7 steps: a first chunk of 2, then 2 + 2 + one single step
+    assert len(seen) == 1
+    duration, kwargs = seen[0]
+    assert kwargs == {"steps": 5}
+    assert duration > 0.0

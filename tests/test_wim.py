@@ -779,3 +779,60 @@ def test_wim_sdf_restart_persistence(tmp_path):
     sim2 = Simulator(Config(dict(base)))
     read_restart(sim2, basename="wimsdf")
     np.testing.assert_array_equal(np.asarray(sim2.wim.sdf), sdf0)
+
+
+def test_rtparam_chebyshev_matches_float64():
+    """The Chebyshev table interpolation (float32 on device) agrees with a
+    float64 numpy evaluation of the same sums, in every table."""
+    tables_np, _, _ = rtparam._load_tables()
+    rng = np.random.default_rng(3)
+    n = 400
+    t_a = rng.uniform(-1.0, 1.0, n)
+    t_h = rng.uniform(-1.0, 1.0, n)
+    tidx = rng.integers(0, tables_np.shape[0], n)
+    got = np.asarray(rtparam._cheb_interp(
+        jnp.asarray(t_a, jnp.float32), jnp.asarray(t_h, jnp.float32),
+        jnp.asarray(tidx), jnp.asarray(tables_np, jnp.float32),
+    ))
+    tx = np.polynomial.chebyshev.chebvander(t_a, 10)
+    ty = np.polynomial.chebyshev.chebvander(t_h, 10)
+    want = np.einsum("im,imnq,in->iq", tx, tables_np.astype(np.float64)[tidx], ty)
+    scale = np.abs(tables_np).sum(axis=(1, 2)).max(axis=0)  # per column
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale.max())
+    assert np.all(np.abs(got - want) <= 1e-5 * scale + 1e-6)
+
+
+def test_wim_products_run_at_full_precision():
+    """Every matrix product of RTparam and of the spectral attenuation step
+    asks for Precision.HIGHEST, so float32 products never run in TF32."""
+    from nextsim_tpu.wim.wim import attenuate_spectrum
+
+    def dots(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    h = jnp.linspace(0.1, 3.0, 8)
+    om = jnp.full((8,), 2 * np.pi / 10.0)
+    jx = jax.make_jaxpr(rtparam.rtparam_outer)(h, om, jnp.zeros(8), jnp.ones(8))
+    found = list(dots(jx.jaxpr))
+    ndir, ny, nx = 8, 4, 5
+    th = jnp.linspace(-np.pi, np.pi, ndir, endpoint=False)
+    f = jnp.ones((ny, nx))
+    for scatmod in ("isotropic", "dissipated"):
+        p = WimParams(nwavefreq=1, nwavedirn=ndir, scatmod=scatmod)
+        jx = jax.make_jaxpr(
+            lambda s: attenuate_spectrum(
+                s, f, 0.1 * f, 0.01 * f, f, 100.0 * f, jnp.cos(th),
+                jnp.sin(th), jnp.full((ndir,), 2 * np.pi / ndir), 60.0, p,
+            )
+        )(jnp.ones((ndir, ny, nx)))
+        found += list(dots(jx.jaxpr))
+    assert len(found) >= 6
+    for eqn in found:
+        prec = eqn.params["precision"]
+        assert prec is not None and all(
+            q == jax.lax.Precision.HIGHEST for q in prec
+        ), eqn

@@ -9,14 +9,10 @@ count with prep, smoother and output handling cancelled. The same
 difference on measured wall time gives the marginal substep time free of
 dispatch overhead.
 
-Utilization is reported against a v5e VPU peak model: 4 ALU lanesets of
-shape (8, 128) at 940 MHz = 3.85 Top/s counting one op/lane/cycle (twice
-that if every op were an FMA). Physics is a mix of adds/muls/selects/
-divides/rsqrts, so the honest ceiling for this op mix sits between the two
-bounds; the transcendental density contextualises the gap (SURVEY §5
-"per-kernel roofline"; VERDICT r3 item 4).
+Only XLA's own counts are reported; a roofline share needs the device's
+peak rates, which belong with the benchmark.
 
-Usage: python tools/cost_analysis.py [--json out.json]
+Usage: python tools/cost_analysis.py [--nx 464] [--json out.json]
 """
 
 from __future__ import annotations
@@ -28,17 +24,14 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-VPU_OPS_PER_S = 4 * 8 * 128 * 0.94e9  # one op/lane/cycle
-VPU_FMA_FLOPS_PER_S = 2 * VPU_OPS_PER_S
 
-
-def _build(nx, substeps, unroll):
+def _build(nx, substeps, unroll, resolution=10e3):
     from nextsim_tpu.config import Config
     from nextsim_tpu.model.simulator import Simulator
 
     cfg = Config(overrides={
         "grid.preset": "arctic",
-        "grid.nx": nx, "grid.ny": nx, "grid.resolution": 10e3,
+        "grid.nx": nx, "grid.ny": nx, "grid.resolution": resolution,
         "simul.timestep": 200,
         "simul.time_init": "2015-10-16 00:00:00",
         "dynamics.substeps": substeps,
@@ -58,6 +51,8 @@ def _build(nx, substeps, unroll):
 
 
 def _measure(sim, forcing, tinfo, n_steps=30, windows=4):
+    """XLA's counts and the memory footprint of one compiled step, and its
+    time per step: the median of ``windows`` windows of ``n_steps``."""
     import jax
 
     compiled = jax.jit(sim.raw_step_fn).lower(
@@ -77,57 +72,52 @@ def _measure(sim, forcing, tinfo, n_steps=30, windows=4):
         mem = {}
     s, _, _ = compiled(sim.state, forcing, tinfo)
     jax.block_until_ready(s)
-    best = float("inf")
+    per_step = []
     for _ in range(windows):
         t0 = time.perf_counter()
         for _ in range(n_steps):
             s, _, _ = compiled(s, forcing, tinfo)
         jax.block_until_ready(s)
-        best = min(best, (time.perf_counter() - t0) / n_steps)
+        per_step.append((time.perf_counter() - t0) / n_steps)
     return {
         "flops": float(ca.get("flops", 0.0)),
         "transcendentals": float(ca.get("transcendentals", 0.0)),
         "bytes": float(ca.get("bytes accessed", 0.0)),
-        "step_s": best,
+        "step_s": sorted(per_step)[len(per_step) // 2],
+        "window_step_s": per_step,
         "memory": mem,
+    }
+
+
+def marginal_substep(nx, resolution=10e3, lo_sub=4, hi_sub=12):
+    """One substep's XLA flops, transcendentals and bytes, and its marginal
+    time, from two fully unrolled programs (see the module docstring)."""
+    runs = {}
+    for tag, sub in (("lo", lo_sub), ("hi", hi_sub)):
+        sim, forcing, tinfo = _build(nx, sub, sub, resolution)
+        runs[tag] = _measure(sim, forcing, tinfo)
+    dsub = hi_sub - lo_sub
+    return {
+        k: (runs["hi"][k] - runs["lo"][k]) / dsub
+        for k in ("flops", "transcendentals", "bytes", "step_s")
     }
 
 
 def main() -> None:
     import jax
 
-    nx = 464
+    nx = int(sys.argv[sys.argv.index("--nx") + 1]) if "--nx" in sys.argv else 464
     cells = nx * nx
-    lo_sub, hi_sub = 4, 12
-
-    runs = {}
-    for tag, sub, unroll in (
-        ("lo", lo_sub, lo_sub), ("hi", hi_sub, hi_sub), ("prod", 120, 4),
-    ):
-        sim, forcing, tinfo = _build(nx, sub, unroll)
-        runs[tag] = _measure(sim, forcing, tinfo)
-        runs[tag]["substeps"] = sub
-
-    dsub = hi_sub - lo_sub
-    per_substep = {
-        k: (runs["hi"][k] - runs["lo"][k]) / dsub
-        for k in ("flops", "transcendentals", "bytes", "step_s")
-    }
-    hbm = runs["prod"]["memory"]  # device-memory footprint of one step
-    marg_flops_s = per_substep["flops"] / per_substep["step_s"]
-    prod = runs["prod"]
-    prod_us_per_substep = prod["step_s"] * 1e6 / 120
-    # production achieved rate from the marginal flop count (the
-    # prep/smoother flops are amortised over 120 substeps — negligible)
-    prod_flops_s = per_substep["flops"] * 120 / prod["step_s"]
-
+    per_substep = marginal_substep(nx)
+    sim, forcing, tinfo = _build(nx, 120, 4)
+    prod = _measure(sim, forcing, tinfo)
     report = {
         "grid": f"{nx}x{nx}",
         "cells": cells,
         "method": (
-            f"marginal between fully-unrolled substeps={lo_sub} and "
-            f"={hi_sub} programs (XLA cost_analysis counts while bodies "
-            "once; full unroll removes the loop)"
+            "marginal between fully-unrolled substeps=4 and =12 programs "
+            "(XLA cost_analysis counts while bodies once; full unroll "
+            "removes the loop)"
         ),
         "per_substep": {
             "flops": per_substep["flops"],
@@ -138,23 +128,19 @@ def main() -> None:
             "marginal_us": per_substep["step_s"] * 1e6,
         },
         "production": {
-            "substeps": 120, "unroll": 4,
+            "substeps": 120, "unroll": sim.dyn.substep_unroll,
             "step_ms": prod["step_s"] * 1e3,
-            "us_per_substep": prod_us_per_substep,
-            "achieved_flops_per_s": prod_flops_s,
+            "us_per_substep": prod["step_s"] * 1e6 / 120,
+            # achieved rates from the marginal counts (the prep/smoother
+            # work is amortised over 120 substeps)
+            "achieved_flops_per_s": per_substep["flops"] * 120 / prod["step_s"],
+            "achieved_bytes_per_s": per_substep["bytes"] * 120 / prod["step_s"],
         },
-        "vpu_peak_model": {
-            "ops_per_s": VPU_OPS_PER_S,
-            "fma_flops_per_s": VPU_FMA_FLOPS_PER_S,
-            "utilization_vs_ops": prod_flops_s / VPU_OPS_PER_S,
-            "utilization_vs_fma": prod_flops_s / VPU_FMA_FLOPS_PER_S,
-            "transcendental_per_flop": (
-                per_substep["transcendentals"] / max(per_substep["flops"], 1.0)
-            ),
+        "memory": prod["memory"],
+        "device": {
+            "platform": jax.devices()[0].platform,
+            "kind": jax.devices()[0].device_kind,
         },
-        "hbm_memory": hbm,
-        "raw": runs,
-        "device": str(jax.devices()[0]),
     }
     out = json.dumps(report, indent=1)
     print(out)

@@ -127,15 +127,37 @@ LANDMASSES = [
 ]
 
 
+def points_in_polygon(x: np.ndarray, y: np.ndarray, poly) -> np.ndarray:
+    """Even-odd ray test of points (x, y) against a closed polygon.
+
+    A ray from each point towards +x crosses the edge (x0,y0)-(x1,y1) when
+    the edge straddles the point's y (half-open: y0 >= y differs from
+    y1 >= y) and the point lies on the edge's left-hand side of the ray; an
+    odd number of crossings means inside. The comparisons are those of
+    matplotlib's ``Path.contains_points`` (pnpoly), so points on an edge or
+    a vertex fall on the same side as there."""
+    inside = np.zeros(np.shape(x), bool)
+    xs, ys = np.asarray(poly, np.float64).T
+    x0, y0 = xs[-1], ys[-1]
+    yflag0 = y0 >= y
+    for x1, y1 in zip(xs, ys):
+        yflag1 = y1 >= y
+        cross = (yflag0 != yflag1) & (
+            ((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == yflag1
+        )
+        inside ^= cross
+        x0, y0, yflag0 = x1, y1, yflag1
+    return inside
+
+
 def land_mask(lon2: np.ndarray, lat2: np.ndarray) -> np.ndarray:
     """Rasterize the landmass polygons (True = land)."""
-    from matplotlib.path import Path
-
-    pts = np.column_stack([lon2.ravel(), lat2.ravel()])
-    land = np.zeros(lon2.size, bool)
+    lon = lon2.astype(np.float64)
+    lat = lat2.astype(np.float64)
+    land = np.zeros(lon2.shape, bool)
     for poly in LANDMASSES:
-        land |= Path(np.asarray(poly)).contains_points(pts)
-    return land.reshape(lon2.shape)
+        land |= points_in_polygon(lon, lat, poly)
+    return land
 
 
 def build(dlat: float = 0.25, dlon: float = 0.5, seed: int = 0):
